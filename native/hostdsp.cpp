@@ -1,6 +1,6 @@
 // Native host-side DSP engine for tetraear_tpu.
 //
-// The device (TPU) does the dense math; these are the host runtime's hot
+// The device (GPU) does the dense math; these are the host runtime's hot
 // byte/bit loops, where the Python interpreter cost dominates:
 //
 //   * crc16_ccitt        — the reference's bitwise CRC (poly 0x1021,

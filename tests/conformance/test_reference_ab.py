@@ -147,7 +147,7 @@ def _strip_volatile(frame: dict) -> dict:
     """Normalize a frame dict for A/B comparison."""
     out = {}
     for k, v in frame.items():
-        if k in ("sync_position",):          # TPU-side extra key
+        if k in ("sync_position",):          # this repo's extra key
             continue
         if isinstance(v, np.ndarray):
             v = v.tolist()

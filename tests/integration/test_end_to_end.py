@@ -471,7 +471,7 @@ class TestDownlinkCLI:
             capture_output=True, text=True, timeout=300,
             env={**__import__("os").environ, "PYTHONPATH": str(REPO),
                  "TETRAEAR_TPU_LOG_DIR": str(tmp_path / "logs"),
-                 "TETRAEAR_TPU_PLATFORM": "cpu"},
+                 "JAX_PLATFORMS": "cpu"},
             cwd=str(tmp_path))
         assert result.returncode == 0, result.stderr[-2000:]
         assert "[DONE]" in result.stdout
@@ -511,7 +511,7 @@ class TestTuiCLI:
             capture_output=True, text=True, timeout=300,
             env={**os.environ, "PYTHONPATH": "/root/repo",
                  "TETRAEAR_TPU_LOG_DIR": str(tmp_path / "logs"),
-                 "TETRAEAR_TPU_PLATFORM": "cpu"},
+                 "JAX_PLATFORMS": "cpu"},
             cwd=str(tmp_path))
         assert proc.returncode == 0, proc.stderr[-1200:]
         assert "HELLO HELLO" in proc.stdout
@@ -547,7 +547,7 @@ class TestPfbDecodeCLI:
             capture_output=True, text=True, timeout=420,
             env={**os.environ, "PYTHONPATH": "/root/repo",
                  "TETRAEAR_TPU_LOG_DIR": str(tmp_path / "logs"),
-                 "TETRAEAR_TPU_PLATFORM": "cpu"},
+                 "JAX_PLATFORMS": "cpu"},
             cwd=str(tmp_path))
         assert proc.returncode == 0, proc.stderr[-1200:]
         assert "96 carriers" in proc.stdout

@@ -1,4 +1,4 @@
-"""tetraear_tpu — a TPU-native TETRA receive framework.
+"""tetraear_tpu — a GPU-native TETRA receive framework.
 
 A from-scratch JAX/XLA/Pallas implementation of the capabilities of the
 WizzardDr/TetraEar-BladeRF reference decoder: wideband IQ -> channelized
@@ -37,7 +37,7 @@ _LAZY = {
     "FileReplaySource": "tetraear_tpu.io.replay",
 }
 
-# reference facade exports (tetraear/__init__.py:37-47) plus TPU additions
+# reference facade exports (tetraear/__init__.py:37-47) plus device-pipeline additions
 __all__ = ["TetraDecoder", "TEADecryptor", "TetraKeyManager",
            "TetraProtocolParser", "SignalProcessor", "BladeRFCapture",
            "TetraSignalDetector", "VoiceProcessor", "FrequencyScanner",

@@ -8,7 +8,7 @@ Three builders, mirroring the reference's three call sites:
   soft bits in the 4 block ranges).
 * :func:`block_from_hard_bits` — continuous_capture.py:101-124 and
   tools/rtl_auto_capture.py:51-90 (first 432 frame bits as +/-127).
-* :func:`block_from_soft_llrs` — TPU-native addition: real soft demod
+* :func:`block_from_soft_llrs` — device-native addition: real soft demod
   outputs (ops/dqpsk.demodulate_soft) scaled into the codec's soft-bit
   range, preserving confidence instead of hard +/-127.
 """
@@ -86,7 +86,7 @@ def block_from_symbols(frame: dict, demodulated_symbols,
 
 
 def block_from_soft_llrs(llrs) -> bytes:
-    """TPU-native soft path: per-bit LLR-ish values in [-1, 1] from
+    """Device-native soft path: per-bit LLR-ish values in [-1, 1] from
     ops/dqpsk.demodulate_soft -> scaled int soft bits.  Gives the ETSI
     channel decoder real confidence information."""
     llrs = np.asarray(llrs, dtype=np.float32).reshape(-1)[:432]

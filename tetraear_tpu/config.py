@@ -11,11 +11,11 @@ Profiles
     (tetraear/signal/processor.py:221-273): scipy-style ``decimate`` (IIR
     cheby1-8 filtfilt) -> frequency shift -> Butterworth-4 filtfilt ->
     integer-sps best-phase pick -> pi/4-DQPSK quantize.  IIR filtfilt runs as
-    a ``lax.scan``; slow on TPU, used for conformance validation.
+    a ``lax.scan``; sequential, used for conformance validation.
 ``ref-compat``
     Decision-equivalent fast path: the IIR filtfilt stages are replaced by
     linear-phase FIR filters with matched squared-magnitude response,
-    implemented as polyphase matmuls (MXU).  Same decision chain downstream;
+    implemented as polyphase matmuls.  Same decision chain downstream;
     symbol/sync/CRC decisions agree with ``ref-exact`` within the SNR bound
     (see BASELINE.md: conformance is decision-level).
 ``etsi``
@@ -54,9 +54,6 @@ class ReceiverConfig:
 
     # sync search
     sync_thresholds: Tuple[float, ...] = C.SYNC_THRESHOLDS
-
-    # use pallas kernels where available (falls back to jnp on CPU)
-    use_pallas: bool = True
 
     @property
     def decimation_factor(self) -> int:

@@ -1,7 +1,7 @@
 """BladeRF capture driver (hardware-gated).
 
 Behavioral parity with tetraear/signal/capture.py:41-328 where hardware is
-present; on TPU hosts without libbladeRF the module degrades to enumeration
+present; on accelerator hosts without libbladeRF the module degrades to enumeration
 stubs and the replay sources in io/replay.py carry ingestion.
 
 The reference's per-sample struct-unpack loop (capture.py:259-267, its

@@ -1,6 +1,6 @@
 """IQ file replay sources.
 
-On TPU hosts there is no USB SDR; recorded IQ replay is the primary
+On accelerator hosts there is no USB SDR; recorded IQ replay is the primary
 ingestion path (BASELINE config 5: "live BladeRF-rate replay").  Sources
 expose the same surface as the capture driver (``open/read_samples/
 set_frequency/close``) so the scanner, capture loop and CLI are

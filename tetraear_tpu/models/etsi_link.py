@@ -12,7 +12,7 @@ end to end without recorded captures:
 (The true ETSI burst field offsets — broadcast bits, phase-adjustment
  fields, mid-burst training placement — require spec access unavailable in
  this environment; this framing keeps every coded-chain element real while
- making the burst layout explicit and swappable, see ROUND1.md gap #2.)
+ making the burst layout explicit and swappable, see protocol/bursts.py.)
 
 Receive: the etsi receiver's dense TS1/TS2 sync correlation locates burst
 starts; soft bits following each hit feed the full channel-decode chain

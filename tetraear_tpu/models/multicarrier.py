@@ -38,19 +38,11 @@ class MulticarrierResult(NamedTuple):
 
 def _window_mode() -> str:
     """Candidate-window extraction: "onehot" (gather-free tile matmul,
-    the accelerator default) or "vmap" (the r2-r4 per-row gather, the
-    CPU default and the accelerator kill-switch).  Round-5 attribution
-    (tools/tpu_conv_probe.py candgather96): the vmap gather was 39.2 ms
-    of the 39.8 ms 96-channel candidates program on the remote TPU —
-    gathers of any shape are pathological on this backend.  The one-hot
-    variant is bit-identical (pinned by tests/unit/
-    test_fused_frontend.py) and measured, same healthy window: cand96
-    39.8 -> 9.6 ms, cand16 11.8 -> 6.4 ms, full 16-carrier pipeline
-    221.9 -> 265.0 MS/s, 96-channel PFB 100.6 -> 160.2 MS/s
-    (BENCH_EVIDENCE_r5.md) — hence the accelerator default.  On CPU the
-    indexed gather is near-free while the one-hot einsums are ~GFLOPs
-    of real work, so the legacy path stays the CPU default (same
-    backend gating as every other dense-for-TPU formulation here)."""
+    the accelerator default) or "vmap" (the per-row gather, the CPU
+    default).  Both are bit-identical (pinned by tests/unit/
+    test_fused_frontend.py).  On CPU the indexed gather is near-free
+    while the one-hot einsums are ~GFLOPs of real work.  Which one the
+    GPU should take is not measured yet."""
     v = os.environ.get("TETRAEAR_CAND_GATHER")
     if v is None:
         return "onehot" if jax.default_backend() != "cpu" else "vmap"
@@ -63,11 +55,11 @@ def _windows_onehot(bits: jnp.ndarray, start: jnp.ndarray) -> jnp.ndarray:
     """Gather-free candidate-window extraction, bit-identical to the
     clamped gather ``bits[c, min(start+j, b-1)]``.
 
-    TPU-first formulation: the bit stream is tiled into 128-bit
-    segments (pure reshape), each candidate's 6 consecutive tiles are
-    selected by a one-hot MATMUL over the segment axis (MXU work, no
-    gather), and the sub-tile shift r in [0,128) is applied by two
-    levels of one-hot-weighted STATIC slices (8 x 16).  Padding
+    The bit stream is tiled into 128-bit segments (pure reshape), each
+    candidate's 6 consecutive tiles are selected by a one-hot MATMUL
+    over the segment axis (no gather), and the sub-tile shift r in
+    [0,128) is applied by two levels of one-hot-weighted STATIC slices
+    (8 x 16).  Padding
     replicates the last bit so out-of-range reads equal the legacy
     clamp exactly.  All arithmetic is one-hot selection of 0/1 values
     in bf16 with f32 accumulation — exact by construction (pinned by
@@ -90,7 +82,7 @@ def _windows_onehot(bits: jnp.ndarray, start: jnp.ndarray) -> jnp.ndarray:
     ohq = (q[..., None]
            == jnp.arange(nseg, dtype=jnp.int32)).astype(jnp.bfloat16)
     # T[n, k, i*S:(i+1)*S] = tile q+i of row n  (6 shifted one-hot
-    # matmuls; ~10 GFLOP at the 96-channel bench shape — MXU noise)
+    # matmuls; ~10 GFLOP at the 96-channel bench shape)
     parts = [
         jnp.einsum("nkq,nqt->nkt", ohq[:, :, : nseg - i],
                    r_tiles[:, i:, :].astype(jnp.bfloat16),
@@ -129,9 +121,8 @@ def extract_candidates(bits: jnp.ndarray, corr: jnp.ndarray,
     in_bounds = jnp.broadcast_to(in_bounds.reshape(corr.shape), corr.shape)
     masked = jnp.where(in_bounds, corr, -1.0)
     # hierarchical top-K: segment-max reduce, then top_k over the ~1000
-    # segment maxima, then refine to the in-segment argmax.  lax.top_k
-    # over the full (C, 131k) bench stream measured ~20-30 ms (and hangs
-    # standalone on this backend); the reduce+small-topk is a few ms.
+    # segment maxima, then refine to the in-segment argmax, instead of
+    # lax.top_k over the full (C, 131k) bench stream.
     # True syncs are >=510 bits apart so a 128-bit segment holds at most
     # one — the only semantic change is that near-duplicate positions of
     # the SAME sync (+/-1-bit 20/22 matches) collapse to the best one,
@@ -158,9 +149,7 @@ def extract_candidates(bits: jnp.ndarray, corr: jnp.ndarray,
         win = jnp.minimum(win, b - 1)
         # batched gather WITHOUT materializing the (C, K, B) broadcast
         # of the bit streams first (at 96 channels x 64 candidates x
-        # 131k bench bits the broadcast is an ~800 MB u8 intermediate —
-        # HBM-bound, and this backend is pathologically slow on large
-        # gathers already)
+        # 131k bench bits the broadcast is an ~800 MB u8 intermediate)
         flat_bits = bits.reshape(-1, b)
         flat_win = win.reshape(flat_bits.shape[0], -1, C.BITS_PER_SLOT)
         frames = jax.vmap(lambda bb, ww: bb[ww])(flat_bits, flat_win)
@@ -170,9 +159,8 @@ def extract_candidates(bits: jnp.ndarray, corr: jnp.ndarray,
     # region (window offsets [0,108) u [122,230), sync-overlap geometry)
     # through the batched GF(2)-matmul soft check.  The previous dense
     # sliding-conv CRC scored EVERY window position — ~190 GFLOP at the
-    # 96-channel bench shape for verdicts only K candidates consume
-    # (measured 64 ms, the whole pipeline's slowest stage); this is the
-    # same verdict function on the same windows at ~1/2000th the FLOPs.
+    # 96-channel bench shape for verdicts only K candidates consume;
+    # this is the same verdict function on the same windows at ~1/2000th the FLOPs.
     # Verdicts at invalid (clamped) candidates are masked by `valid`.
     data_bits = jnp.concatenate(
         [frames[..., C.BURST_BLOCK1[0]:C.BURST_BLOCK1[1]],
@@ -212,13 +200,9 @@ def _demod_front(y: jnp.ndarray, cfg: ReceiverConfig,
 
 @functools.lru_cache(maxsize=8)
 def _candidates_compiled(k: int, threshold: float):
-    """The candidates+CRC stage as its OWN dispatched program.
-
-    Measured on the remote TPU: the monolithic demod+candidates program
-    runs 52-56 ms/block while the same ops split across two dispatched
-    programs run 27.9 ms (identical outputs) — the backend schedules the
-    mixed conv / top-k / gather graph pathologically when fused into one
-    executable.  The dispatch boundary is free by comparison."""
+    """The candidates+CRC stage as its OWN dispatched program, shared
+    by every front-end (identical outputs to the single-program
+    _demod_tail)."""
     @jax.jit
     def run(bits, corr, count):
         valid_bits = jnp.maximum(count - 1, 0) * 2
@@ -254,17 +238,25 @@ def _multicarrier_block(x: jnp.ndarray, offsets_hz: jnp.ndarray,
     return _demod_tail(y, cfg, k, threshold)
 
 
+def _stage_list(conv_prog, kernel_dev, tail_prog, cand) -> list:
+    """The split-dispatch step as (name, jitted program, extra args):
+    each program takes the previous one's outputs followed by its extra
+    args, the first one the input block.  Lets a caller compile, time and
+    size each dispatched program of the step on its own."""
+    return [("conv", conv_prog, (kernel_dev,)), ("tail", tail_prog, ()),
+            ("candidates", cand, ())]
+
+
 class MulticarrierFrontend:
     """Jitted multi-carrier block pipeline with a fixed candidate budget.
 
     ``fused=True`` replaces the staged mixer + decimation FIR + channel
     FIR with one dense multi-channel convolution (ops/fused.py) — the
-    same linear operator, MXU-shaped (2.5x front-end speedup measured on
-    the TPU); requires concrete (host) carrier offsets at call time.
-    ``fused="s2d"`` uses the space-to-depth stride-1 formulation of the
-    same conv (ops/fused.s2d_kernel): decimation folded into the channel
-    dimension, candidate for backends where the strided conv underfeeds
-    the MXU.
+    same linear operator as one implicit GEMM; requires concrete (host)
+    carrier offsets at call time.  ``fused="s2d"`` uses the
+    space-to-depth stride-1 formulation of the same conv
+    (ops/fused.s2d_kernel): decimation folded into the channel
+    dimension.
     """
 
     def __init__(self, config: ReceiverConfig | None = None,
@@ -328,27 +320,20 @@ class MulticarrierFrontend:
                                       cfg.ref_samples_per_symbol)
 
         if isinstance(self.fused, str) and self.fused not in (
-                "s2d", "s2d_of", "fused") and not self.fused.startswith(
-                "pallas"):
+                "s2d", "s2d_of", "fused"):
             # fail loudly: an unknown variant string must not silently
             # fall through to the legacy fused path and get
             # measured/labeled as the variant that never ran
             raise ValueError(
                 f"unknown fused variant {self.fused!r}; valid: s2d, "
-                "s2d_of, pallas[_db|_bf16], pallas_of<N>[_bf16], "
-                "fused/True")
-        if self.fused == "s2d" or self.fused == "s2d_of" or (
-                isinstance(self.fused, str)
-                and self.fused.startswith("pallas")):
-            # THREE dispatched programs (conv -> demod tail -> candidates):
-            # consecutive blocks pipeline on the backend, so steady-state
-            # throughput is set by the slowest stage (the conv, 34 ms at
-            # bench scale) instead of the fused front's 58 ms — same
-            # two-program trick that took round 2 from 52.8 to 99.7 MS/s,
-            # applied once more.  The realpair tail is decision-identical
-            # on the valid region (tests/unit/test_realpair.py).
-            # "s2d_of" additionally folds consecutive output positions
-            # into channels so 2C*fold fills the MXU's 128 output lanes
+                "s2d_of, fused/True")
+        if self.fused in ("s2d", "s2d_of"):
+            # THREE dispatched programs (conv -> demod tail -> candidates)
+            # so consecutive blocks can pipeline: steady-state throughput
+            # is set by the slowest stage instead of the sum.  The
+            # realpair tail is decision-identical on the valid region
+            # (tests/unit/test_realpair.py).  "s2d_of" additionally folds
+            # consecutive output positions into channels
             # (ops/fused.s2d_of_kernel) — same values, pinned by
             # tests/unit/test_fused_frontend.py.
             from tetraear_tpu.models.realpair import _demod_from_pair
@@ -364,60 +349,6 @@ class MulticarrierFrontend:
                 def conv_prog(x, kern):
                     return fused.fused_channelize_s2d_of_ri(
                         x, kern, gc, L, decim, fold)
-            elif self.fused.startswith("pallas_of"):
-                # output-folded MXU Pallas conv: C2*fold output rows
-                # fill all 128 MXU lanes, fold x fewer patch-copy bytes
-                from tetraear_tpu.ops.pallas.s2d_conv import (
-                    of_group_weights, pallas_s2d_conv_of_wk)
-                tok = self.fused.removeprefix("pallas_of")   # "4"/"4_bf16"
-                parts = tok.split("_")
-                if not parts[0].isdigit() or parts[1:] not in ([], ["bf16"]):
-                    raise ValueError(
-                        f"unknown pallas_of variant {self.fused!r}; valid: "
-                        "pallas_of<N>, pallas_of<N>_bf16")
-                fold = int(parts[0])
-                k2 = np.asarray(fused.s2d_kernel(kernel, decim))
-                _c2p, ich, lp = k2.shape
-                kernel_dev = jax.device_put(
-                    jnp.asarray(of_group_weights(k2, decim, fold)))
-                pbf16 = tok.endswith("bf16")
-
-                @jax.jit
-                def conv_prog(x, kern):
-                    out = pallas_s2d_conv_of_wk(x, kern, gc, L, decim,
-                                                fold, ich, lp, bf16=pbf16)
-                    c2h = out.shape[0] // 2
-                    return out[:c2h], out[c2h:]
-            elif self.fused.startswith("pallas"):
-                # MXU-mapped Pallas conv stage (ops/pallas/s2d_conv.py):
-                # same contraction as the s2d conv, stated as explicit
-                # matmuls; interpret-mode off-TPU
-                if self.fused not in ("pallas", "pallas_db",
-                                      "pallas_bf16", "pallas_hb16"):
-                    # fail loudly: a typo'd variant must not silently run
-                    # (and get measured/labeled as) a different kernel
-                    raise ValueError(
-                        f"unknown pallas conv variant {self.fused!r}; "
-                        "valid: pallas, pallas_db, pallas_bf16, "
-                        "pallas_hb16, pallas_of<N>[_bf16]")
-                from tetraear_tpu.ops.pallas.s2d_conv import (
-                    _group_weights, pallas_s2d_conv_wk)
-                k2 = np.asarray(fused.s2d_kernel(kernel, decim))
-                _c2p, ich, lp = k2.shape
-                kernel_dev = jax.device_put(
-                    jnp.asarray(_group_weights(k2, decim)))
-                # _hb16: in-kernel bf16 output — halves the conv->tail
-                # handoff bytes (see the PFB twin)
-                pvariant = {"pallas_db": "db", "pallas_bf16": "bf16",
-                            "pallas_hb16": "bf16h"}.get(self.fused,
-                                                        "dma")
-
-                @jax.jit
-                def conv_prog(x, kern):
-                    out = pallas_s2d_conv_wk(x, kern, gc, L, decim, ich,
-                                             lp, variant=pvariant)
-                    c2h = out.shape[0] // 2
-                    return out[:c2h], out[c2h:]
             else:
                 kernel_dev = jax.device_put(fused.s2d_kernel(kernel, decim))
 
@@ -449,7 +380,8 @@ class MulticarrierFrontend:
 
     @functools.lru_cache(maxsize=8)
     def _compiled_fused(self, offs_key: tuple):
-        kernel_dev, front, _, _ = self._fused_stages(offs_key)
+        kernel_dev, front, conv_prog, tail_prog = \
+            self._fused_stages(offs_key)
         cand = _candidates_compiled(self.num_candidates, self.threshold)
 
         def run(x, start_index):
@@ -457,16 +389,17 @@ class MulticarrierFrontend:
             pos, ccorr, valid, frames, crc_ok = cand(bits, corr, count)
             return MulticarrierResult(bits, corr, count, pos, ccorr,
                                       valid, frames, crc_ok)
+        if conv_prog is not None:
+            run.stages = _stage_list(conv_prog, kernel_dev, tail_prog, cand)
         return run
 
     @functools.lru_cache(maxsize=8)
     def _compiled_fused_batch(self, offs_key: tuple):
         """Block-batched fused pipeline: x is (B, N) — B independent
         blocks per DISPATCH through every stage (conv, demod tail,
-        candidates).  The remote backend's per-program dispatch floor
-        (~6.5 ms x 3 programs, ROOFLINE.md gap decomposition) is paid
-        once per B blocks instead of per block; stage outputs equal the
-        per-block pipeline's, stacked (tests/unit/test_fused_frontend).
+        candidates), so the per-program dispatch cost is paid once per
+        B blocks; stage outputs equal the per-block pipeline's, stacked
+        (tests/unit/test_fused_frontend).
         """
         kernel_dev, front, conv_prog, tail_prog = \
             self._fused_stages(offs_key)
@@ -552,8 +485,8 @@ class PfbMulticarrierFrontend:
         self.threshold = threshold
         self.taps_per_branch = taps_per_branch
         # fused=True: same filterbank as ONE dense multi-channel conv
-        # (ops/fused.pfb_kernel) — the gather-based formulation is
-        # pathological on the remote TPU backend
+        # (ops/fused.pfb_kernel) instead of the gather-based polyphase
+        # form (ops/pfb.py)
         self.fused = fused
         fs = self.config.sample_rate_hz
         self.num_channels = int(round(fs / 25e3))
@@ -567,22 +500,19 @@ class PfbMulticarrierFrontend:
     @functools.lru_cache(maxsize=4)
     def _compiled(self, n: int, batch: int = 0):
         """batch=0: x is (N,).  batch=B>0: x is (B, N) — B independent
-        blocks per dispatch through every stage (same dispatch-floor
+        blocks per dispatch through every stage (same dispatch
         amortization as MulticarrierFrontend._compiled_fused_batch; the
         candidates stage is leading-dim agnostic so only the front is
-        vmapped).  Not supported for the pallas variants (pallas_call
-        vmap adds a grid dim the kernel was not written for)."""
+        vmapped)."""
         cfg = self.config
         k, thr = self.num_candidates, self.threshold
         num_channels, decim, tpb = (self.num_channels, self.decim,
                                     self.taps_per_branch)
-        if batch and isinstance(self.fused, str) \
-                and self.fused.startswith("pallas"):
-            raise ValueError("batched PFB unsupported for pallas variants")
 
         cand = _candidates_compiled(k, thr)
 
-        def _assemble(front_fn, already_batched: bool = False):
+        def _assemble(front_fn, already_batched: bool = False,
+                      split: tuple | None = None):
             if batch and not already_batched:
                 front_fn = jax.jit(jax.vmap(front_fn))
 
@@ -592,19 +522,19 @@ class PfbMulticarrierFrontend:
                                                          count)
                 return MulticarrierResult(bits, corr, count, pos, ccorr,
                                           valid, frames, crc_ok)
+            if split is not None:
+                run.stages = _stage_list(*split, cand)
             return run
 
         if self.fused:
             if isinstance(self.fused, str) and self.fused not in (
-                    "pallas", "pallas_db", "pallas_bf16", "pallas_hb16",
-                    "pallas_mono", "s2d", "s2d_mono", "s2d_hb16"):
+                    "s2d", "s2d_mono", "s2d_hb16"):
                 # fail loudly: an unknown variant string must not silently
                 # fall through to the legacy fused_channelize_ri path and
                 # get measured/labeled as the variant that never ran
                 raise ValueError(
                     f"unknown PFB fused variant {self.fused!r}; valid: "
-                    "s2d, s2d_mono, s2d_hb16, pallas, pallas_db, "
-                    "pallas_bf16, pallas_hb16, True")
+                    "s2d, s2d_mono, s2d_hb16, True")
             from tetraear_tpu.ops import fused
             from tetraear_tpu.models.realpair import _demod_from_pair
             kernel, gc, rot = fused.pfb_kernel(
@@ -613,79 +543,12 @@ class PfbMulticarrierFrontend:
             sps = cfg.ref_samples_per_symbol
             z_rot = fused.symbol_rotation(rot_np, decim, sps)
 
-            if self.fused == "pallas_mono":
-                # Pallas bf16 conv + demod tail in ONE program: at the
-                # pallas_bf16 operating point (~25 ms conv of a 33.4 ms
-                # block) ~8 ms of tail/candidates remains exposed
-                # across the program boundary — the monolith lets XLA
-                # schedule tail work behind the pallas_call and drops a
-                # dispatch
-                from tetraear_tpu.ops.pallas.s2d_conv import (
-                    _group_weights, pallas_s2d_conv_wk)
-                L = kernel.shape[-1]
-                k2m = np.asarray(fused.s2d_kernel(kernel, decim))
-                _c2m, ichm, lpm = k2m.shape
-                kernel_dev = jax.device_put(
-                    jnp.asarray(_group_weights(k2m, decim)))
-
-                @jax.jit
-                def front_pmono(x, kern):
-                    out = pallas_s2d_conv_wk(x, kern, gc, L, decim,
-                                             ichm, lpm, variant="bf16")
-                    c2h = out.shape[0] // 2
-                    res = _demod_from_pair(out[:c2h], out[c2h:], sps,
-                                           z_rot=z_rot)
-                    return res.bits, res.sync_corr, res.count
-                return _assemble(lambda x: front_pmono(x, kernel_dev))
-
-            if self.fused in ("pallas", "pallas_db", "pallas_bf16",
-                              "pallas_hb16"):
-                # MXU-mapped Pallas conv stage (ops/pallas/s2d_conv.py)
-                # in the split-dispatch arrangement; see
-                # MulticarrierFrontend for the 16-carrier twin.
-                # pallas_hb16 = bf16 conv AND bf16 conv->tail handoff
-                # (the s2d_hb16 trick on top: the (2, 192, 832k) f32
-                # pair is 638 MB across the serializing program
-                # boundary — bf16 halves it)
-                from tetraear_tpu.ops.pallas.s2d_conv import (
-                    _group_weights, pallas_s2d_conv_wk)
-                L = kernel.shape[-1]
-                k2 = np.asarray(fused.s2d_kernel(kernel, decim))
-                _c2p, ich, lp = k2.shape
-                kernel_dev = jax.device_put(
-                    jnp.asarray(_group_weights(k2, decim)))
-                # pallas_hb16 -> "bf16h": the kernel WRITES bf16 (half
-                # the handoff bytes with no extra cast pass; a separate
-                # astype after the kernel measured a regression, 221.9
-                # vs 256.0 MS/s)
-                pvariant = {"pallas_db": "db", "pallas_bf16": "bf16",
-                            "pallas_hb16": "bf16h"}.get(self.fused, "dma")
-
-                @jax.jit
-                def conv_prog_p(x, kern):
-                    out = pallas_s2d_conv_wk(x, kern, gc, L, decim, ich,
-                                             lp, variant=pvariant)
-                    c2h = out.shape[0] // 2
-                    return out[:c2h], out[c2h:]
-
-                @jax.jit
-                def tail_prog_p(yr, yi):
-                    res = _demod_from_pair(yr.astype(jnp.float32),
-                                           yi.astype(jnp.float32),
-                                           sps, z_rot=z_rot)
-                    return res.bits, res.sync_corr, res.count
-
-                def front_pallas(x):
-                    yr, yi = conv_prog_p(x, kernel_dev)
-                    return tail_prog_p(yr, yi)
-                return _assemble(front_pallas)
-
             if self.fused == "s2d_hb16":
                 # split-dispatch s2d with a HALF-PRECISION handoff: the
                 # (2, 192, 832k) f32 channel pair between conv and tail
                 # is 638 MB at bench scale, written then re-read across
-                # the program boundary that was measured to serialize —
-                # shipping it bf16 halves that traffic.  The tail's
+                # the program boundary — shipping it bf16 halves that
+                # traffic.  The tail's
                 # |y|^2 timing sums and differential products recompute
                 # in f32 from the bf16 symbols; decision parity on
                 # burst fixtures is pinned by
@@ -726,18 +589,13 @@ class PfbMulticarrierFrontend:
                 return _assemble(front_h)
 
             if self.fused in ("s2d", "s2d_mono"):
-                # the 16-carrier bench path's two wins, applied to the
-                # full-band tier (BENCH_r02's weak spot, 49 MS/s):
+                # the 16-carrier path's arrangement applied full-band:
                 # (1) space-to-depth stride-1 conv (decimation folded
-                #     into channels — the MXU-shaped formulation that
-                #     took the 16-carrier conv from ~100 to 239 MS/s),
+                #     into channels),
                 # (2) conv and demod tail as TWO dispatched programs so
-                #     consecutive blocks pipeline (steady state = slowest
-                #     stage, not the sum).  "s2d_mono" keeps them in ONE
-                #     program — at 96 channels the split programs were
-                #     measured NOT to overlap (the 638 MB channel-pair
-                #     handoff between programs serializes on this
-                #     backend), so the monolith avoids one dispatch.
+                #     consecutive blocks can pipeline.  "s2d_mono" keeps
+                #     them in ONE program, which keeps the 638 MB
+                #     channel-pair handoff inside one executable.
                 L = kernel.shape[-1]
                 kernel_dev = jax.device_put(fused.s2d_kernel(kernel,
                                                              decim))
@@ -786,15 +644,15 @@ class PfbMulticarrierFrontend:
                 def front_s2d(x):
                     yr, yi = conv_prog(x, kernel_dev)
                     return tail_prog(yr, yi)
-                return _assemble(front_s2d)
+                return _assemble(front_s2d,
+                                 split=(conv_prog, kernel_dev, tail_prog))
 
             kernel_dev = jax.device_put(kernel)
 
             @jax.jit
             def front_fused(x, kern):
-                # real-pair tail: the 96-channel demod is HBM-bound on
-                # the remote backend; keeping re/im as f32 halves the
-                # traffic, and the gather-free realpair tail is
+                # real-pair tail: keeping re/im as f32 halves the demod's
+                # memory traffic, and the gather-free realpair tail is
                 # decision-identical (tests/unit/test_realpair.py).
                 # rotate=False: derotation deferred to z as a per-channel
                 # constant (ops/fused.symbol_rotation)

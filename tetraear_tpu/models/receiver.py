@@ -6,7 +6,7 @@ Host code (core/decoder.py) then applies the data-dependent protocol logic.
 
 Two entry layers:
 
-* :class:`Frontend` — the TPU-native block pipeline.  Static block shapes,
+* :class:`Frontend` — the device-native block pipeline.  Static block shapes,
   jit-cached per (length, profile); batched/vmapped variants used by the
   channelizer and the sharded pod pipeline.
 * :class:`SignalProcessor` — drop-in behavioral equivalent of the reference
@@ -148,7 +148,7 @@ class SignalProcessor:
             return np.array([], dtype=np.uint8)
         res = self._frontend(samples, freq_offset)
         count = int(res.count)
-        self.symbols = backend.get_complex(res.symbols_iq)[:count]
+        self.symbols = np.asarray(res.symbols_iq)[:count]
         if count < 2:
             return np.array([], dtype=np.uint8)
         return np.asarray(res.hard_symbols)[:count - 1]
@@ -162,10 +162,10 @@ class SignalProcessor:
         """FFT resample to target rate (processor.py:35-49 semantics)."""
         samples = np.asarray(samples)
         new_n = int(len(samples) * target_rate / self.sample_rate)
-        x = backend.put_complex(np.asarray(samples, np.complex64))
+        x = backend.ensure_complex_on_device(samples)
         spec = jnp.fft.fft(x)
         out = _fft_resample(spec, len(samples), new_n)
-        return backend.get_complex(out)
+        return np.asarray(out)
 
     def filter_signal(self, samples, bandwidth=C.CHANNEL_BANDWIDTH_HZ,
                       sample_rate=None):
@@ -174,18 +174,18 @@ class SignalProcessor:
         if samples.size == 0:
             return samples
         cutoff = (bandwidth / 2) / (fs / 2)
-        xd = backend.put_complex(np.asarray(samples, np.complex64))
+        xd = backend.ensure_complex_on_device(samples)
         if self.config.profile == "ref-exact":
-            return backend.get_complex(
+            return np.asarray(
                 iir.butter_filtfilt_exact(xd, cutoff))
         taps = jnp.asarray(fir.design_channel_fir(
             self.config.channel_fir_taps, cutoff))
-        return backend.get_complex(fir.fir_filter_same(xd, taps))
+        return np.asarray(fir.fir_filter_same(xd, taps))
 
     def frequency_shift(self, samples, freq_offset, sample_rate=None):
         fs = sample_rate if sample_rate is not None else self.sample_rate
-        return backend.get_complex(ddc.frequency_shift(
-            backend.put_complex(np.asarray(samples, np.complex64)),
+        return np.asarray(ddc.frequency_shift(
+            backend.ensure_complex_on_device(samples),
             freq_offset, fs))
 
     def extract_symbols(self, samples, sample_rate=None):
@@ -195,15 +195,15 @@ class SignalProcessor:
             return np.array([], dtype=complex)
         sps = int(fs / self.symbol_rate)
         ts = timing.best_phase_pick(
-            backend.put_complex(np.asarray(samples, np.complex64)), sps)
-        return backend.get_complex(ts.symbols)[:int(ts.count)]
+            backend.ensure_complex_on_device(samples), sps)
+        return np.asarray(ts.symbols)[:int(ts.count)]
 
     def demodulate_dqpsk(self, samples) -> np.ndarray:
         samples = np.asarray(samples)
         if samples.size < 2:
             return np.array([], dtype=np.uint8)
         return np.asarray(dqpsk.demodulate_hard(
-            backend.put_complex(np.asarray(samples, np.complex64)),
+            backend.ensure_complex_on_device(samples),
             profile="ref"))
 
 

@@ -162,10 +162,8 @@ class UplinkMonitor:
         self.parser = TetraProtocolParser()
 
     def receive(self, iq, freq_offset: float = 0.0) -> List[UplinkFrame]:
-        from tetraear_tpu.utils.backend import pull_with_watchdog
         res = self.rx(iq, freq_offset)
-        count = pull_with_watchdog(lambda: int(res.count),
-                                   what="uplink demod sync")
+        count = int(res.count)
         if count < 2:
             return []
         soft = np.asarray(res.soft_bits)[:count - 1].reshape(-1)
@@ -295,10 +293,8 @@ class UplinkSlotMonitor:
 
     # ------------------------------------------------------------------
     def receive(self, iq, freq_offset: float = 0.0) -> List[UplinkFrame]:
-        from tetraear_tpu.utils.backend import pull_with_watchdog
         res = self.rx(iq, freq_offset)
-        count = pull_with_watchdog(lambda: int(res.count),
-                                   what="uplink demod sync")
+        count = int(res.count)
         if count < 2:
             return []
         soft = np.asarray(res.soft_bits)[:count - 1].reshape(-1)

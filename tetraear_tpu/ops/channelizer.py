@@ -2,11 +2,11 @@
 carrier streams.
 
 The reference processes a single 25 kHz channel per process
-(processor.py:264); multi-carrier is a new TPU-native capability (BASELINE
+(processor.py:264); multi-carrier is a new device-native capability (BASELINE
 configs 4-5).  Round-1 implementation is a *modulated DDC bank*: each
 carrier applies its own mixer then shares one polyphase decimating FIR,
 batched over the carrier axis — one big strided convolution with C batch
-rows, which XLA tiles onto the MXU.  (A critically/2x-sampled DFT
+rows, which XLA lowers to one batched implicit GEMM.  (A critically/2x-sampled DFT
 filterbank is the planned upgrade for uniformly spaced carrier grids; the
 DDC bank keeps every carrier on the exact 240 kHz grid the ref-compat
 chain expects.)

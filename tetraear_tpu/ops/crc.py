@@ -1,4 +1,4 @@
-"""CRC-16-CCITT as a GF(2) affine map -> batched TPU matmul.
+"""CRC-16-CCITT as a GF(2) affine map -> batched device matmul.
 
 The bitwise CRC update (protocol.py:331-347: poly 0x1021, init 0xFFFF, MSB
 first, no reflection) is linear over GF(2) in the message bits, so for a fixed
@@ -7,8 +7,8 @@ message length M:
     crc(bits) = (A @ bits) mod 2  XOR  crc(zeros_M)
 
 with A a 16xM binary matrix whose column i is crc(e_i) ^ crc(0).  A batch of
-frames then computes all CRCs in one (F, M) x (M, 16) int matmul — MXU work
-instead of a per-bit Python loop.
+frames then computes all CRCs in one (F, M) x (M, 16) int matmul instead
+of a per-bit Python loop.
 
 `crc16_bits` is the exact scalar oracle (host).  `soft_crc_check_*` implement
 the reference's soft acceptance: <=2 bit errors, with a reversed-payload
@@ -149,12 +149,12 @@ def _dense_crc_kernel_of(fold: int) -> tuple:
     """Output-folded dense-CRC kernel: (33*fold, 1, 229+fold), c0.
 
     Same trick as ops/fused.s2d_of_kernel: the 33-output-channel CRC
-    conv fills only 33 of the MXU's 128 output lanes; folding `fold`
+    conv has only 33 output channels; folding `fold`
     consecutive window positions into the channel dimension gives
     33*fold output rows (132 at fold=4) at the cost of fold-1 zero taps
     per row, with a stride-`fold` conv.  out[o, w*fold + r] =
-    (stride-fold conv)[o*fold + r, w] — identical sums, different MXU
-    lane."""
+    (stride-fold conv)[o*fold + r, w] — identical sums, laid out
+    differently."""
     kernel, c0 = _dense_crc_kernel()
     k = np.asarray(kernel)                      # (33, 1, 230)
     k3 = np.zeros((33, fold, 1, 230 + fold - 1), np.float32)
@@ -167,11 +167,9 @@ def _crc_dense_defaults() -> tuple:
     """(fold, bf16) for soft_crc_dense when the caller does not choose.
 
     TETRAEAR_CRC_DENSE: "legacy" (fold=1 f32 — the r2-r4 verified
-    program, byte-identical HLO so the persistent compile cache and the
-    verified bench tiers are untouched) or "of<F>[_bf16]".  The fast
-    variant is bit-identical by construction; it becomes the default
-    only after a measured same-window device win (VERDICT r4 #6
-    discipline)."""
+    program) or "of<F>[_bf16]".  The folded variant is bit-identical
+    by construction; it becomes the default only after a measured
+    device win."""
     v = os.environ.get("TETRAEAR_CRC_DENSE", "legacy")
     if v == "legacy":
         return 1, False
@@ -188,13 +186,11 @@ def soft_crc_dense(bits: jnp.ndarray, fold: int | None = None,
     bits: (..., B) in {0,1} -> (..., B-229) bool where out[..., s] is
     the _check_crc verdict of the window starting at bit s.  One dense
     33-channel convolution instead of per-candidate window gathers
-    (large gathers are pathological on the remote TPU backend) — and it
-    scores every position, not just a top-K subset.  Equivalence with
+    — and it scores every position, not just a top-K subset.  Equivalence with
     soft_crc_check_batch on extracted windows is pinned by tests.
 
-    fold > 1 output-folds the conv so 33*fold output channels fill the
-    MXU's output lanes (round-5: the unfolded f32 conv measured 27.6 ms
-    of the 39.8 ms 96-channel candidates program); bf16 casts the
+    fold > 1 output-folds the conv into 33*fold output channels; bf16
+    casts the
     inputs (bits and a 0/1 kernel are exact in bf16, accumulation stays
     f32, so every sum — integers <= 233 — is EXACT and the verdict is
     bit-identical; pinned by tests/unit/test_ops_demod.py).

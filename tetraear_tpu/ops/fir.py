@@ -1,8 +1,8 @@
-"""FIR design and TPU-friendly polyphase/strided convolution.
+"""FIR design and polyphase/strided convolution.
 
 Filter *design* happens on host at trace time with scipy (static, cached);
-filter *application* is a strided `lax.conv_general_dilated`, which XLA lowers
-to MXU-friendly implicit matmuls on TPU.
+filter *application* is a strided `lax.conv_general_dilated` (an implicit
+GEMM on the device), pinned to HIGHEST precision.
 
 The `ref-compat` profile replaces the reference's zero-phase IIR stages
 (scipy.signal.decimate's cheby1-8 filtfilt, processor.py:254; butter-4
@@ -108,6 +108,7 @@ def _conv1d_real(x: jnp.ndarray, taps: jnp.ndarray, stride: int,
         window_strides=(stride,),
         padding=(pad,),
         dimension_numbers=("NCW", "OIW", "NCW"),
+        precision=lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )
     return out[:, 0, :]

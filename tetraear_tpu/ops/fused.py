@@ -13,10 +13,9 @@ Derivation (all three stages are LTI per carrier, so they compose):
                      * sum_u K_c[u] x[mD + Gc - u],   Gc = G2*D + G1
 
 The sum is one `lax.conv_general_dilated` with 2 input channels (re/im)
-and 2C output channels — a dense implicit GEMM that XLA tiles onto the
-MXU, unlike the staged C=1 convolutions (measured on the remote TPU:
-20.4 ms fused vs 50.1 ms staged for 16 carriers x 2.08 M samples; see
-tools/tpu_profile_stages.py / ROUND2.md).  The residual per-output
+and 2C output channels — one dense implicit GEMM instead of the staged
+C=1 convolutions.  Every conv here runs at HIGHEST precision (f32
+operands; on a GPU no TF32).  The residual per-output
 rotation runs at the decimated rate (10x cheaper than the full-rate
 mixer it replaces).
 
@@ -56,7 +55,7 @@ def modulated_kernel(taps: np.ndarray, offsets_hz: np.ndarray,
     channels BLOCK-ordered [re_0..re_{C-1}, im_0..im_{C-1}] so the
     consumers split the conv output with two contiguous slices
     (out[:C], out[C:]) instead of stride-2 slices — a free split vs a
-    relayout of the full (2C, M) activation on TPU.
+    relayout of the full (2C, M) activation.
 
     Returns (kernel, rotation_cycles) with rotation_cycles[c] = f_c / fs
     (the residual per-output rotation the caller applies)."""
@@ -109,9 +108,8 @@ def pfb_kernel(num_channels: int, sample_rate_hz: float,
     """Dense-conv equivalent of ops/pfb.pfb_channelize (same output:
     causal window ending at m*decim, group delay = prototype delay).
 
-    The gather-based PFB is pathological on the remote TPU (large
-    gathers ~50x slower than dense convs, tools/tpu_bisect.py); this
-    formulation is the same math as ONE multi-channel conv:
+    The same math as the gather-based PFB, stated as ONE multi-channel
+    conv:
     K_c[k] = h[k] e^{+j2pi c k / C}, rotation e^{-j2pi c mD / C}.
     Returns (kernel, gc=0, rotation_cycles)."""
     from tetraear_tpu.ops import pfb
@@ -160,6 +158,7 @@ def fused_channelize_ri(x: jnp.ndarray, kernel: jnp.ndarray, gc: int,
     out = lax.conv_general_dilated(
         xri, kernel, (decim,), ((pad_l, pad_r),),
         dimension_numbers=("NCW", "OIW", "NCW"),
+        precision=lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)[0]               # (2C, M)
     c = out.shape[0] // 2
     yr, yi = out[:c], out[c:]                                # (C, M)
@@ -200,10 +199,8 @@ def s2d_kernel(kernel: jnp.ndarray, decim: int) -> jnp.ndarray:
     a FREE reshape of the (N, 2) re/im-interleaved input, no transpose
     or gather.  This moves the decimation out of the conv stride and
     into the channel dimension: the implicit GEMM contracts over
-    2D*ceil(L/D) ≈ 2L lanes with a dense stride-1 window, a shape the
-    MXU tiles directly (the stride-D formulation leaves the systolic
-    array underfed on this backend).  Returns (2C, 2D, Lp) with input
-    channel index r*2 + j."""
+    2D*ceil(L/D) ≈ 2L input channels with a dense stride-1 window.
+    Returns (2C, 2D, Lp) with input channel index r*2 + j."""
     k = np.asarray(kernel)
     c2, _, L = k.shape
     lp = -(-L // decim)
@@ -217,9 +214,8 @@ def s2d_kernel(kernel: jnp.ndarray, decim: int) -> jnp.ndarray:
 def s2d_of_kernel(kernel: jnp.ndarray, decim: int, fold: int) -> jnp.ndarray:
     """Output-folded space-to-depth kernel: (2C*fold, 2D, Lp+fold-1).
 
-    The s2d conv's output-channel count is 2C — for 16 carriers that is
-    32 of the MXU's 128 output lanes (the PFB's 192 fills them; the DDC
-    bank does not).  Folding `fold` consecutive output positions into
+    The s2d conv's output-channel count is 2C — 32 for 16 carriers.
+    Folding `fold` consecutive output positions into
     the channel dimension multiplies the output channels by `fold` at
     the cost of fold-1 extra (zero) taps per row:
 
@@ -229,7 +225,7 @@ def s2d_of_kernel(kernel: jnp.ndarray, decim: int, fold: int) -> jnp.ndarray:
 
     The un-fold on the output side is one (2C, F, W) -> (2C, W, F)
     minor-axis transpose of the DECIMATED activation (cheap vs the conv).
-    fold=4 with C=16 gives exactly 128 output lanes."""
+    fold=4 with C=16 gives 128 output channels."""
     k2 = np.asarray(s2d_kernel(kernel, decim))
     c2, ich, lp = k2.shape
     k3 = np.zeros((c2, fold, ich, lp + fold - 1), np.float32)
@@ -242,7 +238,7 @@ def _s2d_conv_folded(x: jnp.ndarray, kernel_of: jnp.ndarray, gc: int,
                      L: int, decim: int, fold: int) -> jnp.ndarray:
     """Output-folded stride-`fold` variant of _s2d_conv: same (2C, m_out)
     result (summation order identical per output; the fold only changes
-    which MXU lane computes it)."""
+    which output channel computes it)."""
     n = x.shape[-1]
     m_out = -(-n // decim)
     la = kernel_of.shape[-1]
@@ -256,6 +252,7 @@ def _s2d_conv_folded(x: jnp.ndarray, kernel_of: jnp.ndarray, gc: int,
     out = lax.conv_general_dilated(
         x2, kernel_of, (fold,), ((0, 0),),
         dimension_numbers=("NWC", "OIW", "NCW"),
+        precision=lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)[0][:, :wr]        # (2C*F, Wr)
     c2 = out.shape[0] // fold
     out = out.reshape(c2, fold, wr).transpose(0, 2, 1).reshape(c2, wr * fold)
@@ -295,6 +292,7 @@ def _s2d_conv(x: jnp.ndarray, kernel_s2d: jnp.ndarray, gc: int, L: int,
     out = lax.conv_general_dilated(
         x2, kernel_s2d, (1,), ((0, 0),),
         dimension_numbers=("NWC", "OIW", "NCW"),
+        precision=lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)[0]                # (2C, >=m_out)
     return out[:, :m_out]
 
@@ -344,6 +342,25 @@ def fused_channelize_s2d_ri(x: jnp.ndarray, kernel_s2d: jnp.ndarray,
     return out[:c2], out[c2:]
 
 
+def conv_reference(x: np.ndarray, kernel: np.ndarray, gc: int, decim: int,
+                   m_count: int) -> np.ndarray:
+    """Plain float64 NumPy evaluation of the composite conv: the first
+    ``m_count`` outputs of fused_channelize_ri(rotate=False) stacked as
+    (2C, m_count) rows [re.., im..] — the reference every conv
+    formulation (strided, s2d, s2d_of, a hand-written kernel) is held
+    to."""
+    k = np.asarray(kernel, np.float64)
+    L = k.shape[-1]
+    pad_l = L - 1 - gc
+    need = (m_count - 1) * decim + L
+    xri = np.zeros((2, pad_l + max(len(x), need)), np.float64)
+    xri[0, pad_l:pad_l + len(x)] = np.real(x)
+    xri[1, pad_l:pad_l + len(x)] = np.imag(x)
+    win = np.lib.stride_tricks.sliding_window_view(
+        xri[:, :need], L, axis=-1)[:, ::decim][:, :m_count]   # (2, M, L)
+    return np.einsum("cjl,jml->cm", k, win)
+
+
 def _rotation_period(rot_cycles: np.ndarray, max_q: int = 4608) -> int:
     """Smallest Q with every f_c*Q/fs an integer (0 if none <= max_q).
 
@@ -380,6 +397,7 @@ def fused_channelize(x: jnp.ndarray, kernel: jnp.ndarray, gc: int,
     out = lax.conv_general_dilated(
         xri, kernel, (decim,), ((pad_l, pad_r),),
         dimension_numbers=("NCW", "OIW", "NCW"),
+        precision=lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)[0]               # (2C, M)
     c2 = out.shape[0] // 2
     y = lax.complex(out[:c2], out[c2:])                      # (C, M)
@@ -394,8 +412,8 @@ def fused_channelize(x: jnp.ndarray, kernel: jnp.ndarray, gc: int,
         # exact path (grid-aligned carriers): (C, Q) host-built table —
         # no accumulating f32 error however long the block.  The phase
         # index (s + Gc + mD) mod Q repeats every p = Q/gcd(D, Q) output
-        # samples, so gather one tiny period and tile (this backend's
-        # large gathers are pathological, tools/tpu_bisect.py)
+        # samples, so gather one tiny period and tile (no gather over
+        # the full activation)
         import math
         ph = np.exp(-2j * np.pi * rot_cycles[:, None]
                     * np.arange(q)[None, :]).astype(np.complex64)

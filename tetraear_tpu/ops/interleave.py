@@ -15,7 +15,7 @@ deinterleave_multiburst below; TCH/7.2 is uncoded and un-interleaved
 (ops/channel_coding.TCH_GEOMETRY).
 
 Interleave/de-interleave are pure gathers with precomputed index vectors —
-free on TPU (fused into surrounding ops by XLA).
+fused into surrounding ops by XLA.
 """
 
 from __future__ import annotations

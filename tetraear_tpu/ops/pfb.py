@@ -5,8 +5,7 @@ many-core polyphase filterbanks): one prototype lowpass + a C-point (I)FFT
 replaces C independent mixer+FIR chains.  For the TETRA grid (fs = 2.4 MHz,
 25 kHz spacing -> C = 96 channels) with decimation D = 10 the filterbank
 delivers ALL 96 carriers at 240 kHz each for roughly half the FLOPs of a
-16-carrier DDC bank (ops/channelizer.py), and the FFT/matmul structure maps
-straight onto the TPU.
+16-carrier DDC bank (ops/channelizer.py), as one FFT/matmul structure.
 
 Math (channel c centered at +c*fs/C, fftfreq channel order):
 
@@ -30,6 +29,7 @@ import math
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,6 +106,9 @@ def _idft_tables(num_channels: int) -> tuple:
     return (np.cos(th).astype(np.float32), np.sin(th).astype(np.float32))
 
 
+_mm = functools.partial(jnp.matmul, precision=lax.Precision.HIGHEST)
+
+
 def pfb_channelize_realpair(x_ri: jnp.ndarray, num_channels: int,
                             decim: int, taps: np.ndarray | None = None,
                             chunk: int = 8192) -> jnp.ndarray:
@@ -113,10 +116,9 @@ def pfb_channelize_realpair(x_ri: jnp.ndarray, num_channels: int,
 
     Same math as :func:`pfb_channelize`, with the C-point IFFT expressed as
     two real (C, C) matmuls (IDFT matrix, host-precomputed) and the
-    oversampling rotation as real cos/sin tables — MXU-friendly and
-    executable on backends without complex arithmetic (models/realpair.py
-    rationale).  For C = 96 the (chunk, C) @ (C, C) products dominate and
-    tile directly onto the systolic array.
+    oversampling rotation as real cos/sin tables (no complex arithmetic,
+    models/realpair.py).  For C = 96 the (chunk, C) @ (C, C) products
+    dominate; they run at HIGHEST precision.
     """
     if taps is None:
         taps = design_prototype(num_channels)
@@ -153,8 +155,8 @@ def pfb_channelize_realpair(x_ri: jnp.ndarray, num_channels: int,
         folded = w.reshape(2, chunk, p, num_channels).sum(axis=2)
         fr, fi = folded[0], folded[1]                      # (chunk, C)
         # IDFT (times C): Y = folded @ W with W = cos + j sin
-        yr = fr @ cos_j - fi @ sin_j
-        yi = fr @ sin_j + fi @ cos_j
+        yr = _mm(fr, cos_j) - _mm(fi, sin_j)
+        yi = _mm(fr, sin_j) + _mm(fi, cos_j)
         # oversampling rotation
         rr = rot_r[m_idx % period]
         ri = rot_i[m_idx % period]

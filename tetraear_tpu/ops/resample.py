@@ -12,7 +12,7 @@ upfirdn semantics with zero-phase alignment:
     xu[i] = x[i/L] if i % L == 0 else 0
 
 decomposed per output phase q = m mod L into L plain strided convolutions
-(kernel g_q[j] = h[k0(q) + L*j]) — no zero-stuffed buffers, MXU-friendly.
+(kernel g_q[j] = h[k0(q) + L*j]) — no zero-stuffed buffers.
 Matches scipy.signal.resample_poly(x, L, M, window=h) on the interior.
 """
 
@@ -89,6 +89,7 @@ def _strided_corr(x: jnp.ndarray, kern: jnp.ndarray, stride: int,
     out = lax.conv_general_dilated(
         lhs, rhs, window_strides=(stride,), padding=((0, 0),),
         dimension_numbers=("NCW", "OIW", "NCW"),
+        precision=lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)
     return out[:, 0, :].reshape(x.shape[:-1] + (num_out,))
 

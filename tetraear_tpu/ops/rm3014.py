@@ -11,12 +11,12 @@ basis {1, v_i, v_i v_j} evaluated on F_2^5, Gaussian-eliminated to
 systematic form, then shortened); `tests/unit/test_rm3014.py` pins
 d_min = 8 exhaustively.
 
-Decoding is *optimal* soft-decision maximum likelihood, designed for the
-MXU rather than ported from a serial majority-logic decoder: all 2^14
+Decoding is *optimal* soft-decision maximum likelihood, designed for a
+matrix unit rather than ported from a serial majority-logic decoder: all 2^14
 codewords form a static (16384, 30) ±1 matrix, and decoding a batch of
 30-LLR blocks is one (B, 30) x (30, 16384) matmul + argmax.  At 1 MB for
 the table this trades trivial memory for a single dense op — the shape
-TPUs are built for — and unlike majority-logic it is exact ML on soft
+accelerators are built for — and unlike majority-logic it is exact ML on soft
 inputs.
 
 The reference implementation has no AACH handling at all (its protocol
@@ -115,7 +115,7 @@ def decode_soft(llrs: jnp.ndarray):
     the winning correlation minus the runner-up (confidence; 0 on ties).
 
     One matmul over the codeword table + argmax/top-2 — exact maximum
-    likelihood, MXU-shaped.
+    likelihood, one dense matmul.
     """
     assert llrs.shape[-1] == N_BITS, llrs.shape
     batch_shape = llrs.shape[:-1]

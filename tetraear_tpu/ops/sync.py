@@ -43,6 +43,8 @@ def sync_correlation(bits: jnp.ndarray) -> jnp.ndarray:
     out = lax.conv_general_dilated(
         flat, rhs, window_strides=(1,), padding=((0, 0),),
         dimension_numbers=("NCW", "OIW", "NCW"),
+        # +/-1 operands and integer sums <= 22: exact at any precision
+        precision=lax.Precision.DEFAULT,
         preferred_element_type=jnp.float32)            # (B, 2, N-L+1)
     corr = (L + out) / (2.0 * L)
     return corr.reshape(bits.shape[:-1] + (2, n - L + 1))

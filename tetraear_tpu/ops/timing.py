@@ -46,8 +46,7 @@ def best_phase_pick(x: jnp.ndarray, sps: int, step: int | None = None
     phases = jnp.arange(0, sps, step, dtype=jnp.int32)   # (P,)
 
     # phase p's samples are column p of the (M, sps) reshape — a pad +
-    # free reshape, never a gather or transpose (both are pathological
-    # on the remote TPU backend, tools/tpu_bisect.py).  Zero padding
+    # free reshape, never a gather or transpose.  Zero padding
     # makes per-phase validity masks redundant for the power SUMS (the
     # padded samples contribute 0), so the (P, M) mask/power arrays the
     # old formulation materialized disappear entirely.

@@ -1,23 +1,21 @@
-"""Multi-host distributed runtime glue (SURVEY.md §2.3 / §5.8).
+"""Multi-process distributed runtime glue (SURVEY.md §2.3 / §5.8).
 
 TETRA carriers never communicate and time halos only touch ring
-neighbours, so the pod recipe is:
+neighbours, so the multi-host recipe is:
 
-  1. `initialize_distributed()` on every host (jax.distributed) — the
-     standard TPU-pod env vars (TPU_WORKER_HOSTNAMES etc.) or explicit
-     coordinator args;
-  2. build one global (carrier, time) mesh over jax.devices() — put
-     `carrier` on the slower/DCN-spanning dimension (no traffic) and keep
-     `time` on ICI rings so the overlap-save ppermutes stay intra-slice
-     (parallel/mesh.py ordering does this for standard device orders);
+  1. `initialize_distributed(coordinator, num_processes, process_id)` on
+     every process (jax.distributed; nothing tells JAX of a cluster, so
+     the caller names all three);
+  2. build one global (carrier, time) mesh over jax.devices()
+     (`make_global_mesh`: time within a host, carrier across hosts);
   3. each host device_puts its own IQ shard (per-host ingestion,
      `host_local_shard`) and runs the jitted sharded step
      (parallel/sharded.py); ragged decode results return host-side per
      shard and are stitched locally (ShardedReceiver.decode) — no global
      gather needed because frame ownership is shard-local.
 
-Single-process fallback: everything below degrades to a no-op so the same
-program runs on one host / the CPU test mesh.
+A single process needs no initialization: everything below works on one
+host and on the CPU test mesh as it is.
 """
 
 from __future__ import annotations
@@ -33,27 +31,23 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> bool:
     """Initialize jax.distributed; returns True when multi-process.
 
-    With no arguments, relies on the TPU pod environment (the usual
-    auto-detection).  Safe to call when single-host: failures degrade to
-    single-process mode with a log line.
-    """
+    No coordinator address means a single-process run: nothing is
+    initialized and False is returned.  With one, `num_processes` and
+    `process_id` are required and any initialization error raises."""
+    if coordinator_address is None:
+        return False
+    if num_processes is None or process_id is None:
+        raise ValueError("a coordinator address needs num_processes and "
+                         "process_id")
     import jax
 
-    try:
-        if coordinator_address is not None:
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes, process_id=process_id)
-        else:
-            jax.distributed.initialize()
-        multi = jax.process_count() > 1
-        logger.info("jax.distributed: process %d/%d, %d local / %d global "
-                    "devices", jax.process_index(), jax.process_count(),
-                    jax.local_device_count(), jax.device_count())
-        return multi
-    except Exception as e:
-        logger.info("single-process mode (%s)", str(e)[:120])
-        return False
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)
+    logger.info("jax.distributed: process %d/%d, %d local / %d global "
+                "devices", jax.process_index(), jax.process_count(),
+                jax.local_device_count(), jax.device_count())
+    return jax.process_count() > 1
 
 
 def host_local_shard(total_samples: int) -> tuple[int, int]:
@@ -69,9 +63,9 @@ def host_local_shard(total_samples: int) -> tuple[int, int]:
 
 
 def make_global_mesh(time_axis_per_host: int = 1):
-    """(carrier, time) mesh over all global devices: time axis spans the
-    devices *within* each host (ICI-adjacent under standard ordering),
-    carrier spans hosts."""
+    """(carrier, time) mesh over all global devices: the time axis spans
+    the devices *within* each host, the carrier axis spans hosts (carriers
+    never communicate, so only halos cross the host's own links)."""
     import jax
 
     from tetraear_tpu.parallel.mesh import make_mesh

@@ -3,7 +3,7 @@
 The time axis shards one continuous sample stream; every convolutional
 stage needs neighbour context (SURVEY.md §5.7).  ``exchange_halo`` moves
 edge regions between ring neighbours with `jax.lax.ppermute` — XLA lowers
-these to ICI collective-permutes.  Stream edges (first shard's left halo,
+these to collective-permutes.  Stream edges (first shard's left halo,
 last shard's right halo) are zero-filled, matching the zero-padded
 unsharded filters.
 """

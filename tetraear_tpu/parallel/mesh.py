@@ -5,9 +5,9 @@ The workload's parallel axes (SURVEY.md §2.3):
   time    — one long sample stream split into blocks (the SP/CP analogue),
             stitched with overlap-save halos exchanged via ppermute.
 
-Mesh layout rule of thumb: put `carrier` on the outer (DCN/inter-slice)
-dimension — carriers never communicate — and `time` on ICI neighbours so
-halo ppermutes ride the fast links.
+The mesh follows the algorithm alone: the cards of one host are joined
+all to all (NVLink), so any device order serves.  Carriers never
+communicate; only the time axis exchanges halos.
 """
 
 from __future__ import annotations

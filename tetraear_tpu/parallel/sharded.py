@@ -98,6 +98,7 @@ def _shard_step_fused(x_local: jnp.ndarray, kern_local: jnp.ndarray,
     out = lax.conv_general_dilated(
         xri, kernel, (decim,), ((pad_l, pad_r),),
         dimension_numbers=("NCW", "OIW", "NCW"),
+        precision=lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)[0]                 # (2Cl, M)
     yr, yi = out[:c_local], out[c_local:]
     # deferred derotation (ops/fused.symbol_rotation rationale): |y|^2
@@ -210,16 +211,16 @@ def _shard_step_realpair(x_ri: jnp.ndarray, table: jnp.ndarray,
     phase_power = lax.psum(phase_power, TIME_AXIS)
     best = jnp.argmax(phase_power, axis=-1).astype(jnp.int32)   # (Cl,)
 
-    # --- symbols on the global grid: one-hot matmul (no gather) -----------
+    # --- symbols on the global grid: exact pick at the best phase ---------
     ext_dec_len = yr.shape[-1]
     m_ext = ext_dec_len // sps - 1
     fr = jnp.stack([yr[:, p:p + m_ext * sps:sps] for p in range(sps)],
                    axis=-1)                                  # (Cl, M_ext, sps)
     fi = jnp.stack([yi[:, p:p + m_ext * sps:sps] for p in range(sps)],
                    axis=-1)
-    onehot = jax.nn.one_hot(best, sps, dtype=jnp.float32)
-    sym_r = jnp.einsum("cmp,cp->cm", fr, onehot)
-    sym_i = jnp.einsum("cmp,cp->cm", fi, onehot)
+    pick = best[:, None, None]
+    sym_r = jnp.take_along_axis(fr, pick, axis=-1)[..., 0]
+    sym_i = jnp.take_along_axis(fi, pick, axis=-1)[..., 0]
 
     # --- differential demod with cross-shard carry ------------------------
     prev_r = carry_last(sym_r, TIME_AXIS)
@@ -271,7 +272,7 @@ def build_sharded_step(mesh: Mesh, cfg: ReceiverConfig | None = None,
 def build_sharded_step_fused(mesh: Mesh, offsets_hz,
                              cfg: ReceiverConfig | None = None,
                              halo: int | None = None):
-    """Fused-conv pod step: the MXU-shaped composite kernel per carrier
+    """Fused-conv pod step: the composite-kernel conv per carrier
     (ops/fused.py), sharded over the carrier axis; interiors equal the
     staged build_sharded_step (pinned by tests/unit/test_parallel.py).
     Offsets must be concrete (the kernels are host-built).

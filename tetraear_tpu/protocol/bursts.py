@@ -1,9 +1,9 @@
 """True ETSI downlink burst structures (EN 300 392-2 §9.4.4) — the `etsi`
 profile's air-interface layout.
 
-This closes ROUND1.md gap #2: where `models/etsi_link.py`'s original
-framing was a self-consistent placeholder (TS || coded block), this module
-carries the real continuous-downlink burst field maps:
+Where `models/etsi_link.py`'s original framing was a self-consistent
+placeholder (TS || coded block), this module carries the real
+continuous-downlink burst field maps:
 
 Normal continuous downlink burst (NDB), 510 bits:
 

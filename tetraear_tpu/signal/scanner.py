@@ -151,7 +151,7 @@ class FrequencyScanner:
                       channel_spacing: float = 25e3,
                       min_power: float = -70.0,
                       validate: bool = True) -> List[Dict]:
-        """TPU-first sweep (BASELINE config 3): ONE wideband capture covers
+        """Device-first sweep (BASELINE config 3): ONE wideband capture covers
         sample_rate/channel_spacing channels at once; batched FFT frames
         give per-channel power, and candidate channels are deep-validated
         with the channelized decode path — no per-channel retune/settle.

@@ -4,7 +4,7 @@ TETRA-detected status state machine.
 
 The reference implements these inside Qt widgets (ui/modern.py:649-1362
 WaterfallWidget, :3873-3968 auto-spectrum, :5223-5257 follow-frequency,
-:5309-5390 status machine).  TPU hosts are headless, so the *compute*
+:5309-5390 status machine).  Accelerator hosts are headless, so the *compute*
 behaviors live here as plain classes: feed spectra in, read display
 arrays / control decisions out.  A renderer turns the waterfall history
 into an RGB image (saveable as PNG via any imaging tool, or dumpable as

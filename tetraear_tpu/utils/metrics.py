@@ -1,7 +1,7 @@
 """Throughput metrics and profiling hooks.
 
 SURVEY.md §5.1: the reference has no tracing/profiling; these are
-greenfield TPU-native observability — per-block samples/s counters for the
+greenfield device-native observability — per-block samples/s counters for the
 receive loop and a context manager around ``jax.profiler`` traces.
 """
 

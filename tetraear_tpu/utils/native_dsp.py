@@ -1,6 +1,6 @@
 """ctypes loader for the native host-DSP engine (native/hostdsp.cpp).
 
-The TPU owns the dense math; these calls remove the Python interpreter
+The device owns the dense math; these calls remove the Python interpreter
 cost from the host runtime's hot bit/byte loops: the per-frame soft-CRC
 gate (ops/crc.soft_crc_check_host), SC16-Q11 capture conversion
 (io/capture.py:95-107) and the FM "buzz" discriminator

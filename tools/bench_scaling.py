@@ -8,10 +8,10 @@ relative to the single-device rate.  On this machine real multi-chip
 hardware is unavailable: `--virtual N` uses N virtual CPU devices, which
 validates the sharding/collective program end to end but measures *host*
 arithmetic — treat those efficiency numbers as correctness smoke only.
-On a real pod, run one process per host (tetraear_tpu.parallel.distributed)
-and invoke without --virtual.
+On the GPUs of one host, invoke without --virtual; across hosts, run one
+process per host (tetraear_tpu.parallel.distributed).
 
-Measurements are sync-verified (scalar digest pull) like bench.py.
+Every timed window ends in block_until_ready.
 """
 
 from __future__ import annotations
@@ -58,7 +58,6 @@ def main() -> int:
         import jax
         jax.config.update("jax_platforms", "cpu")
     import jax
-    import jax.numpy as jnp
 
     from tetraear_tpu.config import ReceiverConfig
     from tetraear_tpu.parallel.mesh import make_mesh
@@ -90,22 +89,19 @@ def main() -> int:
                    ).astype(np.float32)
         if args.profile == "etsi":
             run, _halo = build_sharded_step_etsi(mesh, cfg, halo=4 * 400)
-            digest_field = "soft_bits"
         else:
             run = build_sharded_step(mesh, cfg, halo=132 * 130)
-            digest_field = "sync_corr"
         xs, offs = shard_inputs(mesh, x, offsets)
 
         def step():
             return run(xs, offs)
 
         def timed(step_fn):
-            out = step_fn()
-            _ = float(jnp.sum(jnp.abs(getattr(out, digest_field))))  # warmup
+            jax.block_until_ready(step_fn())             # compile + warm
             t0 = time.perf_counter()
             for _i in range(args.iters):
                 out = step_fn()
-            _ = float(jnp.sum(jnp.abs(getattr(out, digest_field))))  # sync
+            jax.block_until_ready(out)
             return (time.perf_counter() - t0) / args.iters
 
         dt = timed(step)
